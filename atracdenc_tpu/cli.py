@@ -37,7 +37,7 @@ def _container_from_ext(path, codec):
 def build_parser():
     p = argparse.ArgumentParser(
         prog="atracdenc-tpu",
-        description="TPU-native ATRAC1/ATRAC3/ATRAC3+ transcoder")
+        description="Batched ATRAC1/ATRAC3/ATRAC3+ transcoder in JAX")
     p.add_argument("-e", "--encode", nargs="?", const="atrac1", metavar="codec",
                    help="encode mode; codec: atrac1 (default), atrac3, atrac3_lp4, atrac3plus")
     p.add_argument("-d", "--decode", action="store_true",
@@ -58,7 +58,7 @@ def build_parser():
     p.add_argument("--exact", action="store_true",
                    help="ATRAC1/ATRAC3 encode: reference-float-semantics "
                         "path (byte-identical to the reference binary; "
-                        "slower than the TPU path)")
+                        "host NumPy, slower than the batched path)")
     p.add_argument("--yaml-log", dest="yaml_log")
     return p
 
@@ -199,6 +199,8 @@ def main(argv=None):
         print("--bfuidxfast option is deprecated and will be removed.")
     if bool(args.encode) == bool(args.decode):
         sys.exit("Select mode: encode or decode")
+    from atracdenc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     try:
         _dispatch(args)
     except SystemExit:

@@ -173,33 +173,13 @@ def _apply_boost(wl, bfu_num):
     return wl
 
 
-import os
-
-_PALLAS_DEFAULT = os.environ.get("ATRACDENC_TPU_PALLAS", "0") == "1"
-
-
-def allocate(sfi, energy, short_flags, loudness, bfu_idx_const=0,
-             use_pallas=None):
+def allocate(sfi, energy, short_flags, loudness, bfu_idx_const=0):
     """Full rate control for a batch of frames.
 
     sfi [..., 52], energy [..., 52], short_flags [..., 3] bool,
     loudness [...] (Loudness / LoudFactor).
-    use_pallas: None -> ATRACDENC_TPU_PALLAS env; True -> the fused VMEM
-    kernel (ops/pallas_alloc.at1_allocate_block; bit-identical, pinned by
-    tests/test_pallas_alloc.py).
     Returns (bfu_idx [...] int32, wordlen [..., 52] int32).
     """
-    if use_pallas is None:
-        use_pallas = _PALLAS_DEFAULT
-    if use_pallas:
-        import jax.extend.backend as jxb
-        from atracdenc_tpu.ops.pallas_alloc import at1_allocate_block
-
-        interpret = jxb.get_backend().platform != "tpu"
-        return at1_allocate_block(sfi, energy, short_flags, loudness,
-                                  bfu_idx_const=bfu_idx_const,
-                                  interpret=interpret)
-
     auto = bfu_idx_const == 0
     start_idx = 7 if auto else bfu_idx_const - 1
     bfu_idx = jnp.full(loudness.shape, start_idx, jnp.int32)

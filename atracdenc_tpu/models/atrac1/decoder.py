@@ -33,8 +33,8 @@ def decode_frames(short_mask, wordlen, sfi, mant):
 
     # assemble [C, F, 512] spectra from the padded blocks; both line
     # layouts tile the spectrum with contiguous per-BFU runs, so the
-    # scatter is two static concatenations + a per-BFU select (a dynamic
-    # scatter here costs ~100x more on TPU)
+    # scatter is two static concatenations + a per-BFU select instead of a
+    # dynamic scatter
     import numpy as np
     short_per_bfu = sum(
         short_mask[..., band, None] * (np.asarray(T.BFU_TO_BAND) == band)

@@ -53,7 +53,7 @@ def gather_bfu_blocks(specs, short_flags):
 
     short_flags: [..., 3] bool per band; selects short/long line layout
     (atrac_scale.cpp:175-188).  Both layouts are static slice compositions;
-    the per-BFU choice is a select (TPU gathers here cost ~600 ms/batch).
+    the per-BFU choice is a select, not a gather.
     """
     long_b = _blocks_static(specs, T.GATHER_LONG)
     short_b = _blocks_static(specs, T.GATHER_SHORT)
@@ -65,9 +65,8 @@ def gather_bfu_blocks(specs, short_flags):
 
 
 @partial(jax.jit, static_argnames=("bfu_idx_const", "window_mode",
-                                   "window_mask", "use_pallas"))
-def encode_frames(pcm, bfu_idx_const=0, window_mode="auto", window_mask=0,
-                  use_pallas=None):
+                                   "window_mask"))
+def encode_frames(pcm, bfu_idx_const=0, window_mode="auto", window_mask=0):
     """Encode [C, T] PCM (T multiple of 512) into ATRAC1 frame planes.
 
     Returns dict of planes:
@@ -114,9 +113,9 @@ def encode_frames(pcm, bfu_idx_const=0, window_mode="auto", window_mask=0,
     sfi, scaled, energy = scale_ops.scale_blocks(
         blocks, _GATHER_MASK, jnp.asarray(T.SCALE_TABLE))
 
-    bfu_idx, wordlen = allocate(sfi, energy, masks, loud,
-                                bfu_idx_const=bfu_idx_const,
-                                use_pallas=use_pallas)
+    with jax.named_scope("rate_control"):
+        bfu_idx, wordlen = allocate(sfi, energy, masks, loud,
+                                    bfu_idx_const=bfu_idx_const)
     mant = scale_ops.quant_mantissas(scaled, wordlen)
 
     # operator feedback: |spec| > MAX_SCALE is exactly where the reference
@@ -140,9 +139,9 @@ CHUNK_RIGHT = 1   # the transient HPF reads 1 sample past the frame
 
 
 @partial(jax.jit, static_argnames=("bfu_idx_const", "window_mode",
-                                   "window_mask", "first", "use_pallas"))
+                                   "window_mask", "first"))
 def _encode_window(pcm_ext, loud_init, bfu_idx_const=0, window_mode="auto",
-                   window_mask=0, first=False, use_pallas=None):
+                   window_mask=0, first=False):
     """Chunk core: pcm_ext [C, (CHUNK_LEFT + f + 1) * 512] -> (planes for
     the f content frames, raw loudness carry).  Context frames pin the
     filterbank/transient/MDCT couplings; the loudness IIR (the only true
@@ -209,9 +208,9 @@ def _encode_window(pcm_ext, loud_init, bfu_idx_const=0, window_mode="auto",
     blocks = gather_bfu_blocks(specs, masks)
     sfi, scaled, energy = scale_ops.scale_blocks(
         blocks, _GATHER_MASK, jnp.asarray(T.SCALE_TABLE))
-    bfu_idx, wordlen = allocate(sfi, energy, masks, loud,
-                                bfu_idx_const=bfu_idx_const,
-                                use_pallas=use_pallas)
+    with jax.named_scope("rate_control"):
+        bfu_idx, wordlen = allocate(sfi, energy, masks, loud,
+                                    bfu_idx_const=bfu_idx_const)
     mant = scale_ops.quant_mantissas(scaled, wordlen)
     absb = jnp.abs(blocks)
     planes = {

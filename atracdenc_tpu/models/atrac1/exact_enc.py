@@ -18,7 +18,7 @@ byte-identical to the reference binary's:
   * the lambda bisection + BFU-shrink + TBitsBooster allocation
     (src/atrac/at1/atrac1_bitalloc.cpp, lib/bs_encode/encode.cpp:57-98)
 
-The TPU encoder (encoder.py) is the throughput path; this one exists so
+The batched encoder (encoder.py) is the throughput path; this one exists so
 format compatibility can be asserted as `==` instead of a percentage.
 Like exact_synth.py it leans on the facts that the oracle builds at -O2
 without -march (scalar SSE2: one rounding per op, no FMA) and that

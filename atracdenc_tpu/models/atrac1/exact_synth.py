@@ -18,7 +18,7 @@ the stateful tails (16-float window chains, QMF tap sums) vectorize over
 the whole track with the per-sample accumulation order preserved.
 
 This is the decoder's verification-grade path (BASELINE "bit-exact QMF
-synthesis"); the JAX path in decoder.py is the batched/TPU formulation of
+synthesis"); the JAX path in decoder.py is the batched formulation of
 the same math and is cross-checked against this one to float tolerance.
 """
 import ctypes

@@ -1,1 +1,1 @@
-"""ATRAC3 codec (TPU-native encoder + QA decoder)."""
+"""ATRAC3 codec (batched JAX encoder + QA decoder)."""

@@ -12,7 +12,7 @@ src/lib/bs_encode/encode.cpp lambda bisection):
   the bisection (CheckBfus -> EStatus::Repeat).
 
 Here the per-(bfu, wordlen) quantization results are materialized once as a
-[..., 32, 8] cost tensor (the TPU analog of TEncCache), so every bisection
+[..., 32, 8] cost tensor (the batched analog of TEncCache), so every bisection
 step is a gather+sum batched over all frames and channels; the shrink rounds
 run under one `lax.while_loop` that exits when no lane shrinks.
 """
@@ -54,20 +54,6 @@ def _ea_groups():
     return groups
 
 
-import os
-
-# Independent defaults: the fused rate-control kernel and the fused
-# quant-memo kernel schedule very differently (the rate kernel's VMEM
-# residency wins big; the quant kernel currently loses to XLA's fusion —
-# see PERF.md), so bench.py toggles them separately.
-_PALLAS_DEFAULT = os.environ.get("ATRACDENC_TPU_PALLAS", "0") == "1"
-_PALLAS_QUANT_DEFAULT = (os.environ.get("ATRACDENC_TPU_PALLAS_QUANT",
-                                        "") or
-                         os.environ.get("ATRACDENC_TPU_PALLAS", "0")) == "1"
-_PALLAS_RATE_DEFAULT = (os.environ.get("ATRACDENC_TPU_PALLAS_RATE", "") or
-                        os.environ.get("ATRACDENC_TPU_PALLAS", "0")) == "1"
-
-
 def _plain_costs_xla(scaled, valid_mask):
     """XLA formulation: broadcast to 8 wordlen lanes, reduce."""
     from atracdenc_tpu.ops.quant import _round_energy
@@ -81,7 +67,7 @@ def _plain_costs_xla(scaled, valid_mask):
 
     # VLC cost (atrac3_bitstream.cpp:186-220) of the PLAIN-rounded
     # mantissas.  Table lookups are step-function arithmetic (codebook
-    # lengths are grouped runs) — TPU gathers from small tables are slow.
+    # lengths are grouped runs) instead of small-table gathers.
     vmask = valid_mask[:, :]                            # [32, 128]
     idx_single = jnp.where(mant < 0, (-mant) * 2,
                            jnp.where(mant > 0, mant * 2 - 1, 0))
@@ -94,23 +80,8 @@ def _plain_costs_xla(scaled, valid_mask):
     return err, vlc_single, mant[..., 1, :]
 
 
-def _plain_costs_pallas(scaled, valid_mask):
-    """Pallas formulation: each block read once, 8 lanes in VMEM
-    (ops/pallas_quant.py)."""
-    import jax.extend.backend as jxb
-    from atracdenc_tpu.ops.pallas_quant import quant_cost_plain
-
-    interpret = jxb.get_backend().platform != "tpu"
-    err, vlc_single = quant_cost_plain(scaled, valid_mask,
-                                       interpret=interpret)
-    # wl==1 plain mantissas for the pair codebook (one cheap XLA lane)
-    t1 = scaled * _MAXQ[1]
-    pair1 = jnp.where(valid_mask, jnp.round(t1), 0.0).astype(jnp.int32)
-    return err, vlc_single, pair1
-
-
-def quant_tensors(scaled, valid_mask, use_pallas=None):
-    """Per-(bfu, wordlen) quantization COSTS (the TPU analog of TEncCache).
+def quant_tensors(scaled, valid_mask):
+    """Per-(bfu, wordlen) quantization COSTS (the batched TEncCache).
 
     scaled: [..., 32, 128] scaled BFU values; valid_mask [32, 128] bool.
     Returns dict with
@@ -123,14 +94,7 @@ def quant_tensors(scaled, valid_mask, use_pallas=None):
     cost via per-flip deltas accumulated inside the greedy scan (exact,
     since single-symbol codes are independent); the wl==1 pair codebook is
     not flip-additive, so that one lane still runs in mantissa mode.
-
-    use_pallas: None -> ATRACDENC_TPU_PALLAS env var; True -> the whole
-    memo (plain costs + EA overlay + pair codebook) runs in one fused
-    VMEM-resident Pallas kernel (ops/pallas_quant.quant_cost_full).
     """
-    if use_pallas is None:
-        use_pallas = _PALLAS_QUANT_DEFAULT
-
     # CLC cost (atrac3_bitstream.cpp:163-184): wl>1 -> len*blockSize;
     # wl==1 -> 4*blockSize/2; wl==0 -> 0 (and never used).
     wl = np.arange(_MAX_WL)
@@ -138,24 +102,7 @@ def quant_tensors(scaled, valid_mask, use_pallas=None):
                                _CLC_LEN[wl][None, :] * _SPECS[:, None],
                                _CLC_LEN[wl][None, :] * (_SPECS[:, None] // 2)))
 
-    if use_pallas:
-        import jax.extend.backend as jxb
-        from atracdenc_tpu.ops.pallas_quant import quant_cost_full
-
-        interpret = jxb.get_backend().platform != "tpu"
-        err, vlc = quant_cost_full(scaled, valid_mask, interpret=interpret)
-        clc = jnp.broadcast_to(clc, err.shape).astype(jnp.int32)
-        return {"err": err, "clc": clc, "vlc": vlc}
-
-    # the plain 8-lane memo: on TPU the Pallas kernel reads each block once
-    # (17 vs 36 ms at the 64x258 bench shape, outputs bit-equal after the
-    # sanitize below — the kernel sanitizes inline); elsewhere the XLA
-    # broadcast form
-    import jax.extend.backend as jxb
-    if jxb.get_backend().platform == "tpu":
-        err, vlc_single, pair1 = _plain_costs_pallas(scaled, valid_mask)
-    else:
-        err, vlc_single, pair1 = _plain_costs_xla(scaled, valid_mask)
+    err, vlc_single, pair1 = _plain_costs_xla(scaled, valid_mask)
     clc = jnp.broadcast_to(clc, err.shape).astype(jnp.int32)
 
     x = scaled[..., :, None, :]                        # [..., 32, 1, 128]
@@ -266,7 +213,7 @@ def _vlc_bits_arith(idx, sel):
 
 def onehot_select(table, idx):
     """table [..., K], idx [...] -> table[..., idx] via one-hot contraction
-    (avoids TPU's slow small-axis take_along_axis)."""
+    instead of a small-axis take_along_axis."""
     k = table.shape[-1]
     oh = jax.nn.one_hot(idx, k, dtype=table.dtype)
     return jnp.sum(table * oh, axis=-1)
@@ -274,13 +221,14 @@ def onehot_select(table, idx):
 
 def csfi_gated(sfi, gain_scale_frame, energy, loudness):
     """Lambda-independent allocation inputs: the gain-energy-corrected SFI
-    (csfi) and the ATH x loudness gate (atrac3_bitstream.cpp:343-371).
-    Shared by the XLA and Pallas rate-control paths — the log2 here is the
-    ONLY transcendental in the chain, so precomputing it keeps the Pallas
-    kernel bit-identical to this path."""
+    (csfi) and the ATH x loudness gate (atrac3_bitstream.cpp:343-371)."""
     band_oh = jnp.asarray(
         np.eye(4, dtype=np.float32)[T.BFU_TO_BAND].T)   # [4, 32] static
-    gs = jnp.einsum("...b,bk->...k", gain_scale_frame, band_oh)
+    # HIGHEST: a TF32 product would round the scale before the log2 below
+    # and move csfi; a non-finite band poisons every BFU (inf * 0), which
+    # the sanitize below maps to 1.0
+    gs = jnp.einsum("...b,bk->...k", gain_scale_frame, band_oh,
+                    precision=jax.lax.Precision.HIGHEST)
     gs = jnp.where(jnp.isfinite(gs) & (gs > 0), gs, 1.0)
 
     corrected_energy = energy * gs
@@ -388,7 +336,7 @@ def _bisect(sfi, gain_scale, energy, spread, num_bfu, loudness,
 
 def allocate(qt, sfi, gain_scale, energy, spread, loudness,
              target_bits, tonal_counts=None, tonal_bits_fn=None,
-             bfu_idx_const=0, tonal_planes=None, use_pallas=None):
+             bfu_idx_const=0):
     """Full rate control for a batch of channel-frames.
 
     qt: precomputed quant tensors (see quant_tensors).
@@ -397,21 +345,8 @@ def allocate(qt, sfi, gain_scale, energy, spread, loudness,
     target_bits [...] int32.
     tonal_bits_fn(wl) -> [...] tonal section cost for an allocation
     (defaults to the constant 5-bit empty-tonal header).
-    tonal_planes: the raw tonal block planes (tonal.scale_groups output) —
-    required by the Pallas path, which computes the tonal dry-run cost
-    in-kernel instead of through the tonal_bits_fn closure.
-    use_pallas: None -> ATRACDENC_TPU_PALLAS env; True -> run the whole
-    bisection in the fused VMEM kernel (ops/pallas_alloc.py).
     Returns (num_bfu [...], coding_mode [...] bool (1=CLC), wordlen [..., 32]).
     """
-    if use_pallas is None:
-        use_pallas = _PALLAS_RATE_DEFAULT
-    if use_pallas and tonal_bits_fn is not None and tonal_planes is None:
-        # the kernel computes the tonal dry-run from tonal_planes, not the
-        # closure; silently substituting the empty-tonal cost would give
-        # different wordlens than the XLA path — honor the caller's cost
-        # function on the XLA path instead
-        use_pallas = False
     if tonal_counts is None:
         tonal_counts = jnp.zeros(sfi.shape, jnp.int32)
     if tonal_bits_fn is None:
@@ -424,29 +359,6 @@ def allocate(qt, sfi, gain_scale, energy, spread, loudness,
                         jnp.minimum(init, lim),
                         jnp.asarray(init)).astype(jnp.int32)
     num_bfu = jnp.maximum(num_bfu, 1)
-
-    if use_pallas:
-        import jax.extend.backend as jxb
-        from atracdenc_tpu.ops.pallas_rate import rate_control_block
-
-        interpret = jxb.get_backend().platform != "tpu"
-        csfi, gated = csfi_gated(sfi, gain_scale, energy, loudness)
-        if tonal_planes is None:
-            z32 = jnp.zeros(sfi.shape, jnp.int32)
-            t_active = t_pos = t_len = t_bfu = z32
-            t_vlc = jnp.zeros(sfi.shape + (_MAX_WL,), jnp.int32)
-        else:
-            t_active = tonal_planes["active"].astype(jnp.int32)
-            t_pos = tonal_planes["start"].astype(jnp.int32)
-            t_len = tonal_planes["len"].astype(jnp.int32)
-            t_bfu = tonal_planes["bfu"].astype(jnp.int32)
-            t_vlc = tonal_planes["vlc_cost"].astype(jnp.int32)
-
-        num_bfu = jnp.broadcast_to(num_bfu, spread.shape)
-        return rate_control_block(
-            csfi, gated, tonal_counts, spread, target_bits, num_bfu,
-            qt["err"], qt["clc"], qt["vlc"], t_active, t_pos, t_len,
-            t_bfu, t_vlc, auto=(bfu_idx_const == 0), interpret=interpret)
 
     def run_bisect(num_bfu):
         return _bisect(sfi, gain_scale, energy, spread, num_bfu,

@@ -39,8 +39,8 @@ def encode_file(args, lp4=False):
         from atracdenc_tpu.utils.progress import print_progress as progress
     if getattr(args, "exact", False):
         # reference-float-semantics path: byte-identical to the reference
-        # binary in every mode (tests/test_at3_exact.py); slower than the
-        # TPU path
+        # binary in every mode (tests/test_at3_exact.py); host NumPy,
+        # slower than the batched path
         from .exact_enc import encode_track_exact
         planes = encode_track_exact(pcm, frame_bytes=frame_size, js=js,
                                     no_gain=args.nogaincontrol,

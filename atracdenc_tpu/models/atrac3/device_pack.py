@@ -78,8 +78,8 @@ def _vlc_idx(m):
 
 def _vlc_steps(sel):
     """(bit-length, code) of spectrum codebook `sel` as step-function
-    breakpoints over the symbol index — TPU gathers from small tables are
-    pathologically slow (see bitalloc._vlc_bits_arith).  Relies on the
+    breakpoints over the symbol index instead of small-table gathers (see
+    bitalloc._vlc_bits_arith).  Relies on the
     codebooks being canonical: codes are consecutive within an equal-length
     run, so code = idx + piecewise-constant offset (verified at import)."""
     lens = T.VLC_BITS[sel]
@@ -130,9 +130,9 @@ def _tonal_fields(planes):
     bucket = quant * 8 + ln
     key = jnp.where(act, bucket * 64 + m32, 1 << 20)
     rank = jnp.sum((key[:, None, :] < key[:, :, None]), axis=-1)  # [N, 32]
-    # one-hot permutation as f32-HIGHEST MXU contractions: every value is a
+    # one-hot permutation as f32-HIGHEST contractions: every value is a
     # small integer (<< 2^24) selected by a single 0/1 row, so the result
-    # is exact — int32 einsums lower to slow VPU loops on TPU
+    # is exact (an int32 einsum would leave the matrix units idle)
     perm = (rank[:, None, :] == m32[None, :, None]) \
         .astype(jnp.float32)                              # [N, i, m]
     hi = jax.lax.Precision.HIGHEST
@@ -193,9 +193,8 @@ def _tonal_fields(planes):
     cw = jnp.where(band_any[:, :, j16 >> 2] & sg_used[:, :, None], 3, 0)
 
     # member VLC codes/bits (coding mode fixed to VLC, :484-487) — per-sel
-    # step arithmetic selected by (qsel == sel) masks; the former
-    # _VLC_CODE[qsel, midx] per-element gather dominated the whole pack
-    # stage on the v5e
+    # step arithmetic selected by (qsel == sel) masks instead of a
+    # _VLC_CODE[qsel, midx] per-element gather
     t7 = jnp.arange(7)
     midx = _vlc_idx(s_mant)                              # [N, i, 7]
     qsel = jnp.clip(s_quant - 1, 0, 6)[..., None]
@@ -370,7 +369,7 @@ def channel_fields(planes, js1=False):
 
     # spectrum planes (mirrors frame.pack_channel:198-231); all table
     # lookups are static per-wordlen step arithmetic, selected by (wl == w)
-    # masks — no gathers (TPU small-table gathers are pathologically slow)
+    # masks, no small-table gathers
     line_valid = (jnp.arange(_MAXLEN)[None, :] < _SPECS[:, None])[None]
     clc_mode = used & (mode == 1)[:, None]
     vlc_mode = used & (mode == 0)[:, None]

@@ -70,21 +70,18 @@ def init_state(c):
 
 
 @partial(jax.jit, static_argnames=("frame_bytes", "js", "no_gain_control",
-                                   "no_tonal", "bfu_idx_const",
-                                   "use_pallas_rate"))
+                                   "no_tonal", "bfu_idx_const"))
 def encode_frames(pcm, frame_bytes=384, js=False, no_gain_control=True,
-                  no_tonal=True, bfu_idx_const=0, use_pallas_rate=None):
+                  no_tonal=True, bfu_idx_const=0):
     planes, _ = encode_frames_chunk(pcm, None, None, frame_bytes, js,
-                                    no_gain_control, no_tonal, bfu_idx_const,
-                                    use_pallas_rate)
+                                    no_gain_control, no_tonal, bfu_idx_const)
     return planes
 
 
 @partial(jax.jit, static_argnames=("frame_bytes", "js", "no_gain_control",
-                                   "no_tonal", "bfu_idx_const",
-                                   "use_pallas_rate"))
+                                   "no_tonal", "bfu_idx_const"))
 def encode_frames_bytes(pcm, frame_bytes=384, js=False, no_gain_control=True,
-                        no_tonal=True, bfu_idx_const=0, use_pallas_rate=None):
+                        no_tonal=True, bfu_idx_const=0):
     """[C, T] PCM -> [F, frame_bytes] uint8 frames, fully ON DEVICE.
 
     Fuses the encoder with the device bitstream serializer
@@ -92,30 +89,21 @@ def encode_frames_bytes(pcm, frame_bytes=384, js=False, no_gain_control=True,
     the batch-transcode fast path (byte-identical to
     frame.pack(encode_frames(...)))."""
     planes, _ = encode_frames_chunk(pcm, None, None, frame_bytes, js,
-                                    no_gain_control, no_tonal, bfu_idx_const,
-                                    use_pallas_rate)
+                                    no_gain_control, no_tonal, bfu_idx_const)
     return pack_device(planes, frame_bytes, js)
 
 
 @partial(jax.jit, static_argnames=("frame_bytes", "js", "no_gain_control",
-                                   "no_tonal", "bfu_idx_const",
-                                   "use_pallas_rate"))
+                                   "no_tonal", "bfu_idx_const"))
 def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
                         js=False, no_gain_control=True, no_tonal=True,
-                        bfu_idx_const=0, use_pallas_rate=None):
+                        bfu_idx_const=0):
     """Encode [C, T] PCM (T multiple of 1024) into ATRAC3 frame planes.
 
     `state` carries the exact cross-chunk recurrences (gain context, MDCT
     overlap, loudness IIR) for long tracks; `next_pcm` provides the
     lookahead input (the 1024 samples after this chunk, or None at track
     end).  Returns (planes, new_state).
-
-    `use_pallas_rate` (static) routes rate control through the fused
-    Pallas kernel (ops/pallas_rate.py; byte-identical to the XLA path).
-    It MUST be passed explicitly (not via bitalloc._PALLAS_RATE_DEFAULT)
-    when toggling at runtime: the module-level jit cache does not see the
-    global, so a flag flip after the first trace would silently keep the
-    old executable.
 
     Gain control and tonal components are staged in follow-up commits; the
     current planes match the reference's --nogaincontrol --notonal mode.
@@ -133,7 +121,8 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
     # QMF needs ~366 input samples of history: prepend the previous chunk's
     # tail frame and drop its band outputs
     ext = jnp.concatenate([state["pcm_tail"], pcm], axis=-1)
-    bands = band_frames(ext)[:, 1:]                  # [C, F, 4, 256]
+    with jax.named_scope("filterbank"):
+        bands = band_frames(ext)[:, 1:]              # [C, F, 4, 256]
     if next_pcm is None:
         next_head = jnp.zeros((c, 4, 128), pcm.dtype)
     else:
@@ -162,14 +151,17 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
         specs = mdct_frames(bands, prev_half=state["mdct_prev"])
         mdct_last = jnp.asarray(T.ENCODE_WINDOW) * bands[:, -1]
     else:
-        gain_levels, gain_locs, gain_npoints, gain_ctx_out =             gain.gain_control(bands, ctx=state["gain"], next_head=next_head)
-        div = gain_divisors(gain_levels, gain_locs, gain_npoints)
-        scale = first_level_scale(gain_levels, gain_npoints)
-        gain_scale_frame, es_carry = gain.energy_scale(
-            bands, div, scale, prev_half=state["mdct_prev"],
-            prev_overlap_init=state["next_overlap"])
-        specs = mdct_frames(bands, div, scale,
-                            prev_half=state["mdct_prev"])
+        with jax.named_scope("gain_mdct"):
+            gain_levels, gain_locs, gain_npoints, gain_ctx_out = \
+                gain.gain_control(bands, ctx=state["gain"],
+                                  next_head=next_head)
+            div = gain_divisors(gain_levels, gain_locs, gain_npoints)
+            scale = first_level_scale(gain_levels, gain_npoints)
+            gain_scale_frame, es_carry = gain.energy_scale(
+                bands, div, scale, prev_half=state["mdct_prev"],
+                prev_overlap_init=state["next_overlap"])
+            specs = mdct_frames(bands, div, scale,
+                                prev_half=state["mdct_prev"])
         mdct_last = es_carry[0]
 
     # loudness IIR (atrac3denc.cpp:811-841): stereo non-JS averages both
@@ -194,9 +186,10 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
         tonal_counts = None
         tonal_bits_fn = None
     else:
-        flat = tonal.flatness_per_bfu(specs * specs)
-        specs, tp = tonal.extract(specs, flat)
-        tonal_planes = tonal.scale_groups(tp)
+        with jax.named_scope("tonal"):
+            flat = tonal.flatness_per_bfu(specs * specs)
+            specs, tp = tonal.extract(specs, flat)
+            tonal_planes = tonal.scale_groups(tp)
         # per-BFU block counts for the allocation discount (the count is
         # keyed on each block's first-component BFU)
         bfu_oh = jax.nn.one_hot(tonal_planes["bfu"], 32, dtype=jnp.int32)
@@ -206,8 +199,9 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
         tonal_bits_fn = tonal.make_cost_fn(tonal_planes)
 
     blocks = gather_bfu_blocks(specs)                # [C, F, 32, 128]
-    sfi, scaled, energy = scale_ops.scale_blocks(
-        blocks, _GATHER_MASK, _SCALE_TABLE)
+    with jax.named_scope("scale"):
+        sfi, scaled, energy = scale_ops.scale_blocks(
+            blocks, _GATHER_MASK, _SCALE_TABLE)
     # operator feedback (atrac_scale.cpp:150-167 prints per-value warnings;
     # the batched pipeline aggregates): |spec| > MAX_SCALE (1.0) is exactly
     # the condition under which the reference clamps and clips
@@ -246,18 +240,20 @@ def encode_frames_chunk(pcm, state=None, next_pcm=None, frame_bytes=384,
     target = jnp.maximum(
         8 * (half + shift_per_ch) - 6 - header_bits, 1).astype(jnp.int32)
 
-    qt = quant_tensors(scaled, _GATHER_MASK)
-    num_bfu, mode, wl = allocate(
-        qt, sfi, gain_scale_frame, energy, spread,
-        jnp.broadcast_to(loudness, (c, f)), target,
-        tonal_counts=tonal_counts, tonal_bits_fn=tonal_bits_fn,
-        bfu_idx_const=bfu_idx_const, tonal_planes=tonal_planes,
-        use_pallas=use_pallas_rate)
+    with jax.named_scope("quant_memo"):
+        qt = quant_tensors(scaled, _GATHER_MASK)
+    with jax.named_scope("rate_control"):
+        num_bfu, mode, wl = allocate(
+            qt, sfi, gain_scale_frame, energy, spread,
+            jnp.broadcast_to(loudness, (c, f)), target,
+            tonal_counts=tonal_counts, tonal_bits_fn=tonal_bits_fn,
+            bfu_idx_const=bfu_idx_const)
 
     # int8: |mantissa| <= 32, and the plane is the bulk of the host transfer;
     # recomputed at the chosen wordlen only (the full [.., 32, 8, 128] memo
     # never materializes — quant_tensors returns costs only)
-    mant = final_mantissas(scaled, _GATHER_MASK, wl)
+    with jax.named_scope("final_mantissas"):
+        mant = final_mantissas(scaled, _GATHER_MASK, wl)
 
     # compact dtypes: the planes cross the device->host link
     out = {

@@ -104,8 +104,8 @@ def _region_matrices():
     samples [1024, 3072) of the 4096 output — so window+rFFT+HPF+8x
     zero-pad+irFFT collapse into ONE [512, 2048] matrix, and the hfr
     energies into a [512, 514] quadratic-form factor (rows = h-weighted
-    Re/Im DFT of the windowed input).  MXU matmuls replace XLA's slow
-    small-FFT lowering; built once in float64.
+    Re/Im DFT of the windowed input).  Matmuls replace the small-FFT
+    lowering; built once in float64.
     """
     win = _planck_window().astype(np.float64)
     h = _hpf_response().astype(np.float64)
@@ -130,7 +130,7 @@ def _region_matrices():
 
 def upsample_region(x):
     """[..., 512] -> (signal region [..., 2048] = upsample(x)[1024:3072],
-    high_freq_ratio [...]) via MXU matmuls (see _region_matrices).
+    high_freq_ratio [...]) via matmuls (see _region_matrices).
 
     Numerically within ~1e-5 of the FFT path (not bit-identical — both are
     float approximations of the same linear operator; the reference uses
@@ -169,11 +169,10 @@ def analyze_gain(region):
     inter-quartile estimates (transient_detector.cpp:95-136).
 
     The quartiles come from a 19-comparator Batcher network on the 8
-    unstacked micro-chunk lanes: jnp.sort on a [.., 32, 8] minor axis was
-    the single hottest op of the whole gain stage on the v5e (~40 ms of
-    analyze_gain's 48 at the bench shape — tiny-trailing-dim sorts poison
-    the layout), while the network's min/max pairs on [.., 32] slices are
-    plain VPU code.  Order-statistic VALUES are identical to the sort's."""
+    unstacked micro-chunk lanes instead of jnp.sort on a [.., 32, 8] minor
+    axis (a sort over a tiny trailing dim); the network's min/max pairs
+    on [.., 32] slices are plain elementwise code.  Order-statistic VALUES
+    are identical to the sort's."""
     sub = region.reshape(region.shape[:-1] + (32, 64))
     gain = _rms(sub)
     micro = _rms(sub.reshape(sub.shape[:-1] + (8, 8)))

@@ -52,13 +52,13 @@ def gain_divisors(levels, locs, npoints):
     Gain points are 8-sample-aligned (loc is in LOC_SZ units) and locs
     strictly ascend, so each 8-sample block is either one point's ramp or a
     constant level — everything resolves with one-hot selections (exact:
-    each one-hot row has a single 1), no TPU-hostile gathers.
+    each one-hot row has a single 1), no gathers.
     """
     ramp_flat = jnp.asarray(_ramp_table_np().reshape(256, T.LOC_SZ))
     p = levels.shape[-1]
     batch = levels.shape[:-1]
-    # flatten lanes to rank <= 3 throughout (high-rank layouts are a TPU
-    # pathology, see BASELINE.md perf notes)
+    # flatten lanes to rank <= 3 throughout (high-rank small-minor-dim
+    # layouts lowered badly)
     levels = levels.reshape(-1, p)
     locs = locs.reshape(-1, p)
     np_f = npoints.reshape(-1)
@@ -80,8 +80,8 @@ def gain_divisors(levels, locs, npoints):
 
     # point p's own block ramps from lev[p] toward lev_ext[p+1]; the
     # one-hot row selects exactly one table row, and Precision.HIGHEST
-    # keeps the f32 ramp values exact through the MXU (the default bf16
-    # pass would truncate their mantissas)
+    # keeps the f32 ramp values exact (a default-precision pass, bf16 or
+    # TF32, would truncate their mantissas)
     cn = jnp.where(valid, lev * 16 + lev_ext[:, 1:], 255)
     oh_cn = (cn.reshape(-1)[:, None] == jnp.arange(256)) \
         .astype(jnp.float32)

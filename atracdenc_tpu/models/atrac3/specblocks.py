@@ -3,8 +3,7 @@
 The 32 BFUs tile the 1024-line spectrum with contiguous ranges
 (BLOCK_SIZE_TAB boundaries, reference atrac3.h:79-110), so the
 [..., 32, 128] zero-padded block view is a static slice/pad composition —
-NOT a gather.  (take_along_axis with the same static index pattern costs
-~300ms/batch on TPU; these compile to plain copies.)
+NOT a gather: these compile to plain copies.
 """
 import jax.numpy as jnp
 

@@ -73,8 +73,7 @@ def extract(specs, flatness):
     # len is the smallest achieving it — i.e. last nonzero |spec| in the
     # window; across starts, argmax's first-max rule IS the min-start
     # tie-break.  One [.., 32, 128] score tensor replaces the former
-    # 5-length argmax loop (~40 passes -> ~6; the loop was the hottest
-    # part of the tonal stage on the v5e).  Bit-equality holds because the
+    # 5-length argmax loop (~40 passes -> ~6).  Bit-equality holds because the
     # masked |spec| padding adds +0.0 to the cumsum, so the capped
     # full-length score is bitwise the plateau value the per-length
     # formulation computed.
@@ -238,6 +237,7 @@ def block_quant(planes, wl, num_bfu):
     bfu = planes["bfu"]
     active = planes["active"] & (bfu < num_bfu[..., None])
     bfu_oh = jax.nn.one_hot(bfu, 32, dtype=jnp.float32)
+    # default precision: small integers (wl <= 7) are exact even in TF32
     wl_b = jnp.einsum("...k,...bk->...b", wl.astype(jnp.float32), bfu_oh
                       ).astype(jnp.int32)
     quant = jnp.clip(jnp.where(active, wl_b + 4, 0), 2, 7)

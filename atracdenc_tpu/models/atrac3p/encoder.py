@@ -44,9 +44,8 @@ def gather_qu_blocks(specs):
 
     The QUs tile the spectrum with contiguous ranges (BLOCK_SIZE_TAB,
     at3p_tables.h:58-76), so this is a static slice/pad composition — NOT
-    a gather (take_along_axis here cost ~39 ms/128-frame stream on the
-    v5e; static slices compile to plain copies, same fix as
-    models/atrac3/specblocks.py)."""
+    a gather: static slices compile to plain copies, same as
+    models/atrac3/specblocks.py."""
     parts = []
     for b in range(32):
         s = int(T.SPECS_START[b])
@@ -72,9 +71,8 @@ def _qu_table_cost(mant, qu, tab_idx):
         sign_bits = jnp.sum((grp != 0).astype(jnp.int32), axis=(-1, -2))
     shifts = (bits * np.arange(nc)).astype(np.int32)
     val = jnp.sum(t << shifts, axis=-1)       # [..., ncodes]
-    # len[val] as a fused equality-sum over the (<=256-entry) codebook row —
-    # a per-element dynamic gather here serializes on TPU and made this
-    # costing the AT3P pipeline's hot stage (57 ms/128-frame stream)
+    # len[val] as a fused equality-sum over the (<=256-entry) codebook row
+    # instead of a per-element dynamic gather
     nsyms = 1 << (bits * nc)
     lens = jnp.asarray(T.SPEC_LEN[tab_idx, :nsyms])
     code_bits = jnp.sum(

@@ -103,9 +103,8 @@ def _wave_sum(freq, ph, amp, i_offset, length=128):
 
     sin(alpha_w + 2*pi*f_w*i/2048) expands to two fixed [1024, length]
     tables contracted with per-wave coefficients: 2 transcendentals per
-    WAVE (vs per sample) and the per-sample work lands on the MXU — the
-    elementwise form was the AT3P pipeline's hottest stage on the v5e
-    (12.5 ms/128-frame stream in gha.subtract alone)."""
+    WAVE (vs per sample) and the per-sample work becomes a matmul instead
+    of an elementwise chain."""
     cos_t, sin_t = _wave_tables(length)               # np [1024, length]
     base = jnp.mod((ph << 6) + i_offset * freq, 2048)
     alpha = (2.0 * np.pi / 2048.0) * base.astype(jnp.float32)
@@ -137,8 +136,8 @@ def _dft_mats():
     spectrum on the 10-bit FreqIndex grid (bins 0..1023).
 
     The lane signal is 128 samples, so the padded rFFT the estimator needs
-    is exactly one [128, 1024] matmul pair — MXU work instead of an XLA
-    FFT over 16x zero padding (the round-3 AT3P hot spot, VERDICT r3 #2).
+    is exactly one [128, 1024] matmul pair instead of an FFT over 16x zero
+    padding.
     """
     n = np.arange(128)[:, None]
     k = np.arange(1024)[None, :]
@@ -375,7 +374,8 @@ def _pqf_response(omega):
     kern = jnp.asarray(pqf._analysis_kernel())             # [16, 384]
     p = jnp.arange(384)
     e = jnp.exp(1j * omega[:, None].astype(jnp.complex64) * p)
-    return e @ kern.T.astype(jnp.complex64)                # [L, 16]
+    return jnp.matmul(e, kern.T.astype(jnp.complex64),     # [L, 16]
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def _wb_band_params(omega, amp, phi, h):
@@ -631,9 +631,8 @@ def _env_mask(has_start, start, has_stop, stop, reg_offset):
     hq = hann[[0, 32, 64, 96]].astype(np.float32)          # rising quarter
 
     def hq_at(j):
-        # 4-entry ramp select as step arithmetic — a per-element gather
-        # into the table serializes on TPU (this pair of gathers was the
-        # hidden cost of gha.subtract, not the sin synthesis)
+        # 4-entry ramp select as step arithmetic instead of a
+        # per-element gather into the table
         return jnp.where(j <= 0, float(hq[0]),
                          jnp.where(j == 1, float(hq[1]),
                                    jnp.where(j == 2, float(hq[2]),

@@ -4,7 +4,7 @@ The reference computes, per output sample, a 12-tap x 32-phase FIR
 ("vectoring") followed by a butterfly + DCT-IV-16 ("matrixing")
 (reference: src/atrac/atrac3plus_pqf/atrac3plus_pqf.c:81-106).  Folding the
 butterfly/DCT into the FIR gives one [16, 384] kernel applied with stride 16
-over the input stream — a single MXU-friendly conv batched over channels and
+over the input stream — a single matmul-shaped conv batched over channels and
 the whole track, with the 368-sample overlap expressed as left padding.
 
 The inverse (IPQF, ffmpeg semantics — the reference validates its analysis

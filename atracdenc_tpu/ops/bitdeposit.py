@@ -3,18 +3,18 @@
 The encoders' serialization used to be host-only (utils/bitpack.py + the
 native C++ packer); for the batch-transcode pipeline that made device->host
 transfer (full mantissa planes) plus single-core host packing the bottleneck.
-This module assembles the final frame BYTES on the TPU:
+This module assembles the final frame BYTES on the device:
 
 Every field k of frame f deposits `widths[f,k]` bits of `values[f,k]` at the
 absolute bit offset `offsets[f,k]` (MSB-first, fields non-overlapping, width
 0 = absent).  Decomposition: a field spans at most two 32-bit words; its
 contribution to each word is split into four byte lanes, and the scatter
 "word w += contribution" is expressed as a one-hot [K, W] x [K, 4bytes]
-matmul — exact integer arithmetic on the MXU, because non-overlapping bit
+matmul — exact integer arithmetic in a float contraction, because non-overlapping bit
 fields make byte-lane sums equal to bitwise OR, each product is a 0/1 x
 (0..255) byte, and f32 accumulation is exact far beyond those magnitudes.
 
-This replaces bit-sequential packing with O(K*W) MXU work per frame and
+This replaces bit-sequential packing with O(K*W) matmul work per frame and
 leaves only container framing on the host.  (Reference semantics:
 src/lib/bitstream/bitstream.cpp:40-91.)
 """

@@ -1,9 +1,9 @@
-"""MDCT / IMDCT as MXU matmuls.
+"""MDCT / IMDCT as matmuls.
 
 The reference computes the MDCT with a pre-twiddle + complex FFT(N/4) +
-post-twiddle pipeline (reference: src/lib/mdct/mdct.h:51-178).  On TPU the
-transform sizes in play (N <= 512) make a direct ``[N, N/2]`` matmul the
-fastest and most numerically robust formulation: it is a single MXU pass,
+post-twiddle pipeline (reference: src/lib/mdct/mdct.h:51-178).  At the
+transform sizes in play (N <= 512) a direct ``[N, N/2]`` matmul is the
+simplest and most numerically robust formulation: it is a single matmul,
 batches trivially over thousands of frames, and has no FFT bit-reversal
 shuffles that fight the vector unit.
 

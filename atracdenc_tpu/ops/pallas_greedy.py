@@ -1,46 +1,50 @@
-"""Pallas TPU kernel: the EA greedy-accept scan over sorted candidates.
+"""Pallas kernel (Triton route): the EA greedy-accept scan over sorted
+candidates.
 
 The energy-adjusted rounding pass (reference QuantMantisas,
 src/atrac/atrac_scale.cpp:85-130) walks borderline values in
 |delta|-ascending order, flipping a rounding whenever that moves the
-quantized block energy toward the original energy.  ops/quant.quant_blocks
-evaluates that walk as an unrolled 128-step `lax.scan` whose [rows] carry
-round-trips HBM between steps — measured at up to 125 ms per group on the
-v5e, dominating the whole quant memo.
+quantized block energy toward the original energy.  Rows are independent;
+within a row each step depends on the previous one.
 
-This kernel runs the identical float recurrence with rows in the LANE
-dimension and the carry in registers: inputs arrive pre-sorted and
-transposed to [L, rows] (the sort stays in XLA — lax.sort is fine there),
-each of the L steps is a handful of full-width vector ops, and only the
-final energy plus the per-step accept flags leave VMEM.
+One program owns a power-of-two block of rows and keeps their running
+energy in registers across an in-kernel loop over the L steps.  Inputs
+arrive pre-sorted (the sort stays in XLA) and transposed to [L, rows], so
+step k is one coalesced load of row k per operand; the tail block is
+masked.
 
-Float op order matches ops/quant.quant_blocks' scan body exactly:
-ex = (e2 - a) + b;  accept = elig & (|ex - e1| < |e2 - e1|).
-tests/test_pallas_greedy.py pins equality (interpret mode on CPU).
+Float op order matches ops/quant.greedy_scan_xla exactly:
+ex = (e2 - a) + b;  accept = elig & (|ex - e1| < |e2 - e1|).  There is no
+multiply, so no FMA contraction can change a bit.
 """
 import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-_LANES = 512
+_BLOCK_ROWS = 128
 
 
-def _kernel(a_ref, b_ref, elig_ref, e1_ref, e2_ref, e2o_ref, acc_ref, *, L):
-    e1 = e1_ref[...]                                   # [1, R]
-    e2 = e2_ref[...]
-    for k in range(L):
-        ak = a_ref[k:k + 1, :]
-        bk = b_ref[k:k + 1, :]
-        el = elig_ref[k:k + 1, :] > 0
+def _kernel(a_ref, b_ref, elig_ref, e1_ref, e2_ref, e2o_ref, acc_ref):
+    L, R = a_ref.shape
+    rows = pl.program_id(0) * _BLOCK_ROWS + jnp.arange(_BLOCK_ROWS)
+    mask = rows < R
+    e1 = plt.load(e1_ref.at[rows], mask=mask, other=0.0)
+
+    def step(k, e2):
+        ak = plt.load(a_ref.at[k, rows], mask=mask, other=0.0)
+        bk = plt.load(b_ref.at[k, rows], mask=mask, other=0.0)
+        el = plt.load(elig_ref.at[k, rows], mask=mask, other=0) > 0
         ex = (e2 - ak) + bk
         acc = el & (jnp.abs(ex - e1) < jnp.abs(e2 - e1))
-        e2 = jnp.where(acc, ex, e2)
-        acc_ref[k:k + 1, :] = acc.astype(jnp.int32)
-    e2o_ref[...] = e2
+        plt.store(acc_ref.at[k, rows], acc.astype(jnp.int32), mask=mask)
+        return jnp.where(acc, ex, e2)
+
+    e2 = plt.load(e2_ref.at[rows], mask=mask, other=0.0)
+    e2 = jax.lax.fori_loop(0, L, step, e2)
+    plt.store(e2o_ref.at[rows], e2, mask=mask)
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
@@ -49,55 +53,22 @@ def greedy_scan(a, b, elig, e1, e2, interpret=False):
 
     a, b:  [rows, L] f32 — the e2-update terms (m^2*inv2, m'^2*inv2) in
            |delta|-rank order;
-    elig:  [rows, L] bool/int — candidate eligibility in the same order;
+    elig:  [rows, L] bool — candidate eligibility in the same order;
     e1:    [rows] f32 — target block energy;
     e2:    [rows] f32 — initial quantized energy.
 
-    Returns (e2_fin [rows] f32, accept [rows, L] bool) — bit-identical to
-    the lax.scan formulation in ops/quant.quant_blocks.
+    Returns (e2_fin [rows] f32, accept [rows, L] bool), bit-identical to
+    ops/quant.greedy_scan_xla.  `interpret` is for tests on the CPU.
     """
     rows, L = a.shape
-    at = jnp.swapaxes(a, 0, 1)
-    bt = jnp.swapaxes(b, 0, 1)
-    et = jnp.swapaxes(elig.astype(jnp.int32), 0, 1)
-    pad = (-rows) % _LANES
-    if pad:
-        zf = jnp.zeros((L, pad), jnp.float32)
-        at = jnp.concatenate([at, zf], axis=1)
-        bt = jnp.concatenate([bt, zf], axis=1)
-        et = jnp.concatenate([et, jnp.zeros((L, pad), jnp.int32)], axis=1)
-        e1 = jnp.concatenate([e1, jnp.zeros((pad,), jnp.float32)])
-        e2 = jnp.concatenate([e2, jnp.zeros((pad,), jnp.float32)])
-    n = at.shape[1]
-    grid = (n // _LANES,)
-
     e2f, acc = pl.pallas_call(
-        functools.partial(_kernel, L=L),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((L, _LANES), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((L, _LANES), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((L, _LANES), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _LANES), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, _LANES), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, _LANES), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((L, _LANES), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-            jax.ShapeDtypeStruct((L, n), jnp.int32),
-        ),
+        _kernel,
+        grid=(pl.cdiv(rows, _BLOCK_ROWS),),
+        out_shape=(jax.ShapeDtypeStruct((rows,), jnp.float32),
+                   jax.ShapeDtypeStruct((L, rows), jnp.int32)),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(at, bt, et, e1[None, :], e2[None, :])
-    e2f = e2f[0, :rows]
-    acc = jnp.swapaxes(acc, 0, 1)[:rows] > 0
-    return e2f, acc
+        name="ea_greedy_scan",
+    )(a.T, b.T, elig.T.astype(jnp.int32), e1, e2)
+    return e2f, acc.T > 0

@@ -5,7 +5,7 @@ with a 46-sample persistent history (reference: src/qmf/qmf.h:47-89,
 src/qmf/qmf.cpp:25-34).  Because the history is just the previous 46 input
 samples, the streaming loop is exactly equivalent to one strided convolution
 over the whole track with 46 leading zeros — which is how we express it here
-so XLA can lower it to MXU-sized implicit GEMMs batched over channels/streams.
+so XLA can lower it to implicit GEMMs batched over channels/streams.
 
 Definitions (matching the reference's streaming semantics bit-for-bit in
 exact arithmetic, with zero initial history):
@@ -47,15 +47,15 @@ _WIN = 174          # window per block: 126 + 48-tap reach
 
 
 def _blocked_fir(x: jax.Array, w, pad_lo: int) -> jax.Array:
-    """Stride-2 FIR bank as a blocked-Toeplitz MXU matmul.
+    """Stride-2 FIR bank as a blocked-Toeplitz matmul.
 
     x [..., T] (T % 128 == 0); w [174, 128] static Toeplitz matrix with
     out[..., 64j + u] (col u) and its partner bank (col 64+u) both reading
     window_j = x_ext[128j : 128j+174], x_ext = pad(x, (pad_lo, 46-pad_lo)).
 
-    A [B, 1, T] stride-2 conv_general_dilated runs at ~2.5 GiB/s on TPU
-    (single channel defeats XLA's implicit-GEMM tiling); this formulation
-    keeps the same math as dense [*, 174] x [174, 128] matmuls.
+    A [B, 1, T] stride-2 conv_general_dilated has a single channel, which
+    defeats implicit-GEMM tiling; this formulation keeps the same math as
+    dense [*, 174] x [174, 128] matmuls.
     """
     t_in = x.shape[-1]
     t = -(-t_in // _BLOCK_IN) * _BLOCK_IN              # zero-extend to 128k

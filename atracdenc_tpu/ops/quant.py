@@ -18,7 +18,37 @@ round-trip touches the greedy inputs.
 import jax
 import jax.numpy as jnp
 
-__all__ = ["quant_blocks"]
+__all__ = ["quant_blocks", "greedy_scan_xla"]
+
+
+def greedy_scan_xla(a, b, elig, e1, e2):
+    """The EA greedy-accept recurrence as a fully unrolled `lax.scan`.
+
+    a, b, elig: [rows, L] in |delta|-rank order; e1, e2: [rows].
+    Returns (e2_fin [rows], accept [rows, L] bool).  L is static (<= 128)
+    and the body is ~6 elementwise ops on [rows]; a rolled loop makes each
+    step its own kernel launch with a round trip of the carry to memory.
+    """
+    def step(e2_run, xs):
+        elig_k, a_k, b_k = xs
+        ex = (e2_run - a_k) + b_k
+        accept = elig_k & (jnp.abs(ex - e1) < jnp.abs(e2_run - e1))
+        return jnp.where(accept, ex, e2_run), accept
+
+    e2_fin, accept = jax.lax.scan(
+        step, e2, (jnp.moveaxis(elig, -1, 0), jnp.moveaxis(a, -1, 0),
+                   jnp.moveaxis(b, -1, 0)), unroll=True)
+    return e2_fin, jnp.moveaxis(accept, 0, -1)
+
+
+def _greedy(a, b, elig, e1, e2):
+    """On the GPU the recurrence runs as the Triton kernel
+    (ops/pallas_greedy.py); elsewhere as the XLA scan.  Both apply the
+    identical float ops in the identical order."""
+    if jax.default_backend() == "gpu":
+        from atracdenc_tpu.ops.pallas_greedy import greedy_scan
+        return greedy_scan(a, b, elig, e1, e2)
+    return greedy_scan_xla(a, b, elig, e1, e2)
 
 
 def _round_energy(scaled, valid, mul):
@@ -62,8 +92,8 @@ def quant_blocks(scaled, valid, mul, ea_mask, aux=None):
     delta = t - (jnp.trunc(t) + 0.5)
     cand = valid & (jnp.abs(delta) < 0.25) & ea_mask[..., None] & (mul > 0)[..., None]
 
-    # rank/gather must run on 2-D [rows, L] layouts: on TPU the same ops on
-    # high-rank small-trailing-dim shapes are ~1000x slower
+    # rank/gather run on 2-D [rows, L] layouts (high-rank shapes with a
+    # small trailing dim lowered to far slower sorts and gathers)
     batch_shape = scaled.shape[:-1]
     L = scaled.shape[-1]
     flat = lambda x: x.reshape((-1, L))
@@ -95,9 +125,9 @@ def quant_blocks(scaled, valid, mul, ea_mask, aux=None):
     # Candidates process in |delta|-ascending order.  A stable lax.sort
     # carries the greedy inputs into rank order exactly — ints sort
     # losslessly, stability reproduces the former comparison-count rank's
-    # index tie-break.  The sort's data movement is the dominant cost of
-    # the whole EA pass on the v5e, so every integer side-input (mantissa,
-    # eligibility, sign of t, VLC bit delta) packs into ONE int32 operand;
+    # index tie-break.  The sort's data movement dominates the EA pass,
+    # so every integer side-input (mantissa, eligibility, sign of t, VLC
+    # bit delta) packs into ONE int32 operand;
     # the float a/b energy terms are recomputed from the exact integer
     # mantissas after the sort (bit-identical: same ints, same ops).
     key = jnp.where(cand, jnp.abs(flat(delta)), jnp.inf)
@@ -128,31 +158,8 @@ def quant_blocks(scaled, valid, mul, ea_mask, aux=None):
     b = (mn_s * mn_s).astype(scaled.dtype) * inv2f[..., None]
 
     # e2 update terms, applied in the reference's exact float order:
-    # ex = (e2 - m^2*inv2) + m'^2*inv2 (atrac_scale.cpp:96-98,118-121).
-    # On TPU the recurrence runs as the Pallas greedy_scan kernel (carry in
-    # registers, rows in the lane dim); elsewhere as a fully unrolled
-    # lax.scan.  Both apply the identical float ops in the identical order
-    # (tests/test_pallas_greedy.py pins equality).
-    import jax.extend.backend as jxb
-
-    if jxb.get_backend().platform == "tpu":
-        from atracdenc_tpu.ops.pallas_greedy import greedy_scan
-        e2_fin, accept_s = greedy_scan(a, b, elig_s, e1f, e2f)
-    else:
-        def step(e2_run, xs):
-            elig_k, a_k, b_k = xs
-            ex = (e2_run - a_k) + b_k
-            accept = elig_k & (jnp.abs(ex - e1f) < jnp.abs(e2_run - e1f))
-            return jnp.where(accept, ex, e2_run), accept
-
-        # fully unrolled: L is static (<=128) and the body is ~6 elementwise
-        # ops on [rows]; a rolled loop makes each step its own dispatch with
-        # an HBM round-trip of the carry
-        e2_fin, accept_s = jax.lax.scan(
-            step, e2f, (jnp.moveaxis(elig_s, -1, 0),
-                        jnp.moveaxis(a, -1, 0), jnp.moveaxis(b, -1, 0)),
-            unroll=True)
-        accept_s = jnp.moveaxis(accept_s, 0, -1)
+    # ex = (e2 - m^2*inv2) + m'^2*inv2 (atrac_scale.cpp:96-98,118-121)
+    e2_fin, accept_s = _greedy(a, b, elig_s, e1f, e2f)
     err = (e1f / e2_fin).reshape(batch_shape)
 
     if aux is not None:

@@ -24,8 +24,8 @@ def scale_blocks(values, valid_mask, scale_table):
     """
     absx = jnp.abs(values) * valid_mask
     maxabs = jnp.minimum(jnp.max(absx, axis=-1), 1.0)
-    # lower_bound as a comparison count (exact, and much faster on TPU than
-    # searchsorted's gather-based binary search)
+    # lower_bound as a comparison count (exact, and one fused reduction
+    # instead of searchsorted's gather-based binary search)
     sfi = jnp.sum(scale_table[:-1] < maxabs[..., None],
                   axis=-1).astype(jnp.int32)
     oh = jax.nn.one_hot(sfi, scale_table.shape[0], dtype=scale_table.dtype)

@@ -6,12 +6,14 @@ new capability of this framework:
   * dp ("stream") axis — independent tracks of a transcode corpus;
   * sp ("sample") axis — a single track's time axis.  Every DSP stage is a
     strided convolution or frame-local matmul, so XLA's SPMD partitioner
-    shards the time axis with automatic halo exchange over ICI; the loudness
-    recurrence is an associative scan, which shards exactly as well.
+    shards the time axis with automatic halo exchange between devices; the
+    loudness recurrence is an associative scan, which shards exactly as
+    well.
 
-All sharding logic is testable on a virtual CPU mesh
-(xla_force_host_platform_device_count) — multi-chip hardware is not required
-for validation.
+One process drives every device of the host.  The caller chooses (dp, sp):
+the cards of one GPU host are joined all to all, so no device order is
+preferred.  All sharding logic is testable on a virtual CPU mesh
+(xla_force_host_platform_device_count).
 """
 import jax
 import jax.numpy as jnp
@@ -22,18 +24,13 @@ from atracdenc_tpu.models.atrac1.encoder import encode_frames
 from atracdenc_tpu.models.atrac3.encoder import encode_frames as at3_encode
 
 
-def make_mesh(n_devices=None, dp=None):
-    """Build a (dp, sp) mesh over the first `n_devices` devices."""
-    devices = jax.devices()[: n_devices or len(jax.devices())]
-    n = len(devices)
-    if dp is None:
-        dp = 1
-        for cand in range(int(np.sqrt(n)), 0, -1):
-            if n % cand == 0:
-                dp = cand
-                break
-    sp = n // dp
-    return Mesh(np.asarray(devices).reshape(dp, sp), ("dp", "sp"))
+def make_mesh(dp, sp=1):
+    """A (dp, sp) mesh over the first dp * sp devices."""
+    devices = jax.devices()
+    if dp * sp > len(devices):
+        raise ValueError(f"mesh ({dp}, {sp}) needs {dp * sp} devices, "
+                         f"{len(devices)} present")
+    return Mesh(np.asarray(devices[: dp * sp]).reshape(dp, sp), ("dp", "sp"))
 
 
 def encode_batch(pcm):
@@ -122,15 +119,13 @@ def decode_batch_at1_sharded(planes, mesh, spec=P("dp")):
     return fn(args)
 
 
-def dryrun(n_devices: int) -> None:
+def dryrun(dp: int, sp: int) -> None:
     """Compile + run sharded encode steps on tiny shapes AND assert the
-    sharded results equal the single-device results byte-for-byte (driver
-    hook; the real mesh tests are tests/test_mesh.py)."""
-    mesh = make_mesh(n_devices)
-    mesh1 = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("dp", "sp"))
-    dp = mesh.shape["dp"]
-    sp = mesh.shape["sp"]
-    s = max(2 * dp, dp)
+    sharded results equal the single-device results byte-for-byte (the
+    real mesh tests are tests/test_mesh.py)."""
+    mesh = make_mesh(dp, sp)
+    mesh1 = make_mesh(1, 1)
+    s = 2 * dp
     rng = np.random.default_rng(0)
 
     t = 512 * 2 * sp

@@ -1,6 +1,6 @@
 """Batch corpus transcoder: encode many WAV files in one process.
 
-The reference is a one-file-at-a-time CLI; this drives the batched TPU
+The reference is a one-file-at-a-time CLI; this drives the batched device
 pipeline across a corpus: tracks are chunked to fixed frame counts (so XLA
 compilations are reused across files), and frame serialization runs ON
 DEVICE (models/*/device_pack.py) so only final frame bytes leave the chip;
@@ -26,24 +26,10 @@ def main(argv=None):
                    help="skip inputs whose output already exists (outputs "
                         "are written atomically via a temp file, so an "
                         "interrupted run never leaves a partial container)")
-    p.add_argument("--hosts", type=int, default=1,
-                   help="number of cooperating processes (multi-host corpus "
-                        "sharding over DCN; tracks are independent, so each "
-                        "host encodes its round-robin share)")
-    p.add_argument("--host-id", type=int, default=0)
-    p.add_argument("--coordinator", default="127.0.0.1:12321",
-                   help="jax.distributed coordinator address (host 0)")
-    p.add_argument("--local-devices", type=int, default=None,
-                   help="force an N-device virtual CPU mesh (validation "
-                        "without TPU hardware)")
     args = p.parse_args(argv)
 
-    if args.hosts > 1 or args.local_devices:
-        from atracdenc_tpu.parallel import distributed as D
-        D.initialize(args.coordinator, args.hosts, args.host_id,
-                     local_devices=args.local_devices)
-        args.inputs = D.corpus_shard(args.inputs, args.host_id, args.hosts)
-
+    from atracdenc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from atracdenc_tpu.io import audio
     from atracdenc_tpu.containers import oma, aea
     os.makedirs(args.out_dir, exist_ok=True)

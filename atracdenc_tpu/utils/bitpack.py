@@ -1,6 +1,6 @@
 """Vectorized MSB-first bit packing/unpacking over batches of frames.
 
-The TPU pipeline emits fixed-shape integer planes; serialization into the
+The batched pipeline emits fixed-shape integer planes; serialization into the
 codec's MSB-first bitstream (reference: src/lib/bitstream/bitstream.cpp) is
 host work.  This NumPy implementation packs/unpacks *all frames at once* via
 bit-matrix scatter/gather; a C++ native implementation with the same contract

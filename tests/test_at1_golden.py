@@ -61,7 +61,7 @@ def test_decode_reference_stream_bit_exact(golden):
 
 
 def test_decode_jax_path_matches_exact_path(golden):
-    """The batched JAX decoder is the TPU formulation of the same math;
+    """The batched JAX decoder is the device formulation of the same math;
     pin it to the bit-exact path within float tolerance."""
     _, ref_decoded, frames, ch = golden
     planes = _split_channels(at1_frame.unpack(frames), ch)

@@ -53,7 +53,7 @@ def test_sub_cutoff_sine_suppressed():
 
 
 def test_region_matmul_matches_fft_path():
-    """upsample_region (the MXU formulation the encoder uses) must agree
+    """upsample_region (the matmul formulation the encoder uses) must agree
     with the FFT formulation on both outputs."""
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.standard_normal((3, 512)).astype(np.float32))

@@ -1,6 +1,6 @@
 """Honest stage profiler for the ATRAC1 encode pipeline (tools/_timing.py).
 
-  python tools/profile_at1.py [--streams 8] [--frames 512] [--pallas]
+  python tools/profile_at1.py [--streams 8] [--frames 512]
 """
 import argparse
 import os
@@ -10,17 +10,15 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/atracdenc_tpu_jax_tpu"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 
 def main():
+    from atracdenc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--streams", type=int, default=8)
     ap.add_argument("--frames", type=int, default=512)
     ap.add_argument("--iters", type=int, default=8)
-    ap.add_argument("--pallas", action="store_true")
     args = ap.parse_args()
 
     import jax
@@ -44,7 +42,7 @@ def main():
     xs = jnp.asarray(np.broadcast_to(pcm, (args.streams,) + pcm.shape))
     units = args.streams * 2 * args.frames
     print(f"batch: {args.streams} x 2ch x {args.frames} frames "
-          f"({units} units); pallas={args.pallas}", flush=True)
+          f"({units} units)", flush=True)
     timeit = make_timeit(iters=args.iters)
 
     vm = lambda fn: jax.jit(lambda a: jax.vmap(fn)(a))
@@ -81,8 +79,7 @@ def main():
     def st_alloc(args_):
         sfi, energy, masks = args_
         loud = jnp.ones(sfi.shape[:2], jnp.float32)
-        return allocate(sfi, energy, masks, loud,
-                        use_pallas=args.pallas)
+        return allocate(sfi, energy, masks, loud)
     alloc = timeit("allocate", vm(st_alloc), (sfi, energy, masks))
     bfu_idx, wordlen = alloc
 
@@ -90,7 +87,7 @@ def main():
            (scaled, wordlen))
 
     def full(p):
-        planes = E.encode_frames(p, use_pallas=args.pallas)
+        planes = E.encode_frames(p)
         merged = {k: jnp.swapaxes(v, 0, 1).reshape((-1,) + v.shape[2:])
                   for k, v in planes.items()}
         return pack_device(merged)
@@ -100,7 +97,7 @@ def main():
           f"{units / max(dt, 1e-9):12.0f} units/s", flush=True)
 
     def enc_only(p):
-        return E.encode_frames(p, use_pallas=args.pallas)
+        return E.encode_frames(p)
     dt = measure(jax.jit(lambda a: jax.vmap(enc_only)(a)), xs,
                  iters=args.iters)
     print(f"{'encode (no pack)':32s} {dt * 1e3:9.2f} ms   "

@@ -7,7 +7,7 @@ the roofline table in PERF.md.
   python tools/profile_at3.py [--streams 32] [--seconds 47.5] [--iters 4]
                               [--trace /tmp/xplane]  # jax.profiler trace
 
-Run on the TPU (default backend); one JAX job at a time on this host.
+Runs on the default backend; one JAX process per card.
 """
 import argparse
 import os
@@ -19,14 +19,11 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
-# persistent executable cache (works for the TPU PJRT client too): repeated
-# profiling runs skip the multi-minute remote compiles
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/atracdenc_tpu_jax_tpu"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 
 def main():
+    from atracdenc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--streams", type=int, default=32)
     ap.add_argument("--seconds", type=float, default=47.5)
@@ -57,12 +54,9 @@ def main():
           f"({frames} stereo frames)")
 
     def timeit(name, fn, *a):
-        from tools._timing import measure, rtt, drain
-        if not hasattr(timeit, "_rtt"):
-            timeit._rtt = rtt()
+        from tools._timing import measure, drain
         try:
-            dt = measure(fn, *a, iters=max(args.iters, 8),
-                         inner_rtt=timeit._rtt)
+            dt = measure(fn, *a, iters=max(args.iters, 8))
         except Exception as exc:                  # OOM at big batches: keep
             print(f"{name:28s}   FAILED: {str(exc)[:120]}")
             return None
@@ -115,11 +109,6 @@ def main():
             s, E._GATHER_MASK))(scaled)
 
     @jax.jit
-    def st_quant_pallas(scaled):
-        return jax.vmap(lambda s: bitalloc.quant_tensors(
-            s, E._GATHER_MASK, use_pallas=True))(scaled)
-
-    @jax.jit
     def st_alloc(qt, sfi, gsf, energy):
         def one(qt, sfi, gsf, energy):
             c, f = sfi.shape[:2]
@@ -154,29 +143,6 @@ def main():
         return jax.vmap(one)(qt, sfi, gsf, energy, specs)
 
     @jax.jit
-    def st_alloc_tonal_pallas(qt, sfi, gsf, energy, specs):
-        """The fused Pallas rate-control kernel, full-mode configuration."""
-        def one(qt, sfi, gsf, energy, specs):
-            c, f = sfi.shape[:2]
-            flat = tonal.flatness_per_bfu(specs * specs)
-            _, tp = tonal.extract(specs, flat)
-            tonal_planes = tonal.scale_groups(tp)
-            bfu_oh = jax.nn.one_hot(tonal_planes["bfu"], 32, dtype=jnp.int32)
-            tonal_counts = jnp.sum(
-                bfu_oh * tonal_planes["active"][..., None].astype(jnp.int32),
-                axis=-2)
-            spread = E.spread_from_sfi(sfi)
-            target = jnp.full((c, f), 1482, jnp.int32)
-            loud = jnp.full((c, f), 1.0, jnp.float32)
-            return bitalloc.allocate(qt, sfi, gsf, energy, spread, loud,
-                                     target, tonal_counts=tonal_counts,
-                                     tonal_bits_fn=tonal.make_cost_fn(
-                                         tonal_planes),
-                                     tonal_planes=tonal_planes,
-                                     use_pallas=True)
-        return jax.vmap(one)(qt, sfi, gsf, energy, specs)
-
-    @jax.jit
     def st_mant(scaled, wl):
         return jax.vmap(lambda s, w: bitalloc.final_mantissas(
             s, E._GATHER_MASK, w))(scaled, wl)
@@ -201,14 +167,9 @@ def main():
     timeit("tonal", st_tonal, specs)
     sfi, scaled, energy = timeit("scale", st_scale, specs)
     qt = timeit("quant_tensors", st_quant, scaled)
-    qt_p = timeit("quant_tensors(pallas)", st_quant_pallas, scaled)
-    if qt is None:
-        qt = qt_p
     res = timeit("allocate(bisect)", st_alloc, qt, sfi, gsf, energy)
     timeit("allocate(+tonal cost)", st_alloc_tonal, qt, sfi, gsf, energy,
            specs)
-    timeit("allocate(pallas rate)", st_alloc_tonal_pallas, qt, sfi, gsf,
-           energy, specs)
     if res is not None:
         nb, mode, wl = res
         timeit("final_mantissas", st_mant, scaled, wl)

@@ -10,7 +10,7 @@ prefix reduced to a scalar so only compute is timed.  The difference
 between successive prefixes is the honest in-context cost of the stage.
 
   python tools/profile_at3_prefix.py [--streams 32] [--nframes 512]
-                                     [--iters 4] [--pallas-rate]
+                                     [--iters 4]
 """
 import argparse
 import os
@@ -22,17 +22,15 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/atracdenc_tpu_jax_tpu"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 
 def main():
+    from atracdenc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--streams", type=int, default=32)
     ap.add_argument("--nframes", type=int, default=512)
     ap.add_argument("--iters", type=int, default=4)
-    ap.add_argument("--pallas-rate", action="store_true")
     args = ap.parse_args()
 
     import jax
@@ -52,8 +50,7 @@ def main():
                    ).astype(np.float32)
     xs = jnp.asarray(np.broadcast_to(pcm, (args.streams,) + pcm.shape))
     frames = args.streams * args.nframes
-    print(f"batch: {args.streams} x {args.nframes} frames = {frames}; "
-          f"pallas_rate={args.pallas_rate}")
+    print(f"batch: {args.streams} x {args.nframes} frames = {frames}")
 
     frame_bytes = 384
 
@@ -125,8 +122,7 @@ def main():
         num_bfu, mode, wl = bitalloc.allocate(
             qt, sfi, gain_scale_frame, energy, spread,
             jnp.broadcast_to(loudness, (c, f)), target,
-            tonal_counts=tonal_counts, tonal_bits_fn=tonal_bits_fn,
-            tonal_planes=tonal_planes, use_pallas=args.pallas_rate)
+            tonal_counts=tonal_counts, tonal_bits_fn=tonal_bits_fn)
         if upto == 6:
             return jnp.sum(num_bfu) + jnp.sum(wl) + jnp.sum(mode)
 
@@ -165,12 +161,9 @@ def main():
     for k, name in enumerate(names):
         fn = jax.jit(lambda xs, k=k: jnp.sum(
             jax.vmap(lambda p: pipeline(p, k))(xs)))
-        from tools._timing import measure, rtt
-        if prev == 0.0:
-            base_rtt = rtt()
+        from tools._timing import measure
         try:
-            dt = measure(fn, xs, iters=max(args.iters, 4),
-                         inner_rtt=base_rtt)
+            dt = measure(fn, xs, iters=max(args.iters, 4))
         except Exception as exc:
             print(f"{name:18s} FAILED: {str(exc)[:100]}")
             continue

@@ -44,12 +44,9 @@ def main():
           f"({frames} stereo frames)")
 
     def timeit(name, fn, *a):
-        from tools._timing import measure, rtt
-        if not hasattr(timeit, "_rtt"):
-            timeit._rtt = rtt()
+        from tools._timing import measure
         try:
-            dt = measure(fn, *a, iters=max(args.iters, 8),
-                         inner_rtt=timeit._rtt)
+            dt = measure(fn, *a, iters=max(args.iters, 8))
         except Exception as exc:
             print(f"{name}: FAILED {type(exc).__name__}: {str(exc)[:100]}")
             return None

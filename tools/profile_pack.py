@@ -13,12 +13,11 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/atracdenc_tpu_jax_tpu"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 
 def main():
+    from atracdenc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--streams", type=int, default=32)
     ap.add_argument("--frames", type=int, default=256)
@@ -44,7 +43,7 @@ def main():
 
     planes = jax.jit(lambda xs: jax.vmap(lambda p: encode_frames(
         p, frame_bytes=384, js=False, no_gain_control=False,
-        no_tonal=False, use_pallas_rate=True))(xs))(xs)
+        no_tonal=False))(xs))(xs)
     planes = jax.block_until_ready(planes)
 
     s, c, f = planes["num_bfu"].shape[:3]
@@ -57,12 +56,9 @@ def main():
             merged[k] = vv.reshape((c, s * f) + v.shape[3:])
 
     def timeit(name, fn, *a):
-        from tools._timing import measure, rtt
-        if not hasattr(timeit, "_rtt"):
-            timeit._rtt = rtt()
+        from tools._timing import measure
         try:
-            dt = measure(fn, *a, iters=max(args.iters, 8),
-                         inner_rtt=timeit._rtt)
+            dt = measure(fn, *a, iters=max(args.iters, 8))
         except Exception as exc:
             print(f"{name}: FAILED {type(exc).__name__}: {str(exc)[:100]}")
             return None

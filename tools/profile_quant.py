@@ -13,12 +13,11 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/atracdenc_tpu_jax_tpu"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 
 def main():
+    from atracdenc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--streams", type=int, default=32)
     ap.add_argument("--frames", type=int, default=256)
@@ -39,12 +38,9 @@ def main():
     print(f"{n} channel-frames;  EA groups: {bitalloc._ea_groups()}")
 
     def timeit(name, fn, *a):
-        from tools._timing import measure, rtt
-        if not hasattr(timeit, "_rtt"):
-            timeit._rtt = rtt()
+        from tools._timing import measure
         try:
-            dt = measure(fn, *a, iters=max(args.iters, 8),
-                         inner_rtt=timeit._rtt)
+            dt = measure(fn, *a, iters=max(args.iters, 8))
         except Exception as exc:
             print(f"{name}: FAILED {type(exc).__name__}: {str(exc)[:100]}")
             return None

@@ -6,7 +6,7 @@ with --update).  The round-1 suite validated these bytes against the
 reference oracle; any optimization that changes a hash has changed the
 bitstream and must re-run the full golden suite.
 
-Hashes are backend-specific (float knife edges differ between the TPU and
+Hashes are backend-specific (float knife edges differ between the GPU and
 the CPU backend); the json records the platform it was taken on.
 
 Usage:  python tools/selfcheck.py [--update] [--platform-key KEY]

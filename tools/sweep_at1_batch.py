@@ -1,12 +1,11 @@
-"""Batch-shape sweep for the ATRAC1 end-to-end encode path (VERDICT r3 #3).
+"""Batch-shape sweep for the ATRAC1 end-to-end encode path (ROADMAP A2).
 
 Measures steady-state AT1 units/s (one unit = 512 samples of one channel)
 of the fused device pipeline (encode_frames -> pack_device) across
-(streams, frames-per-stream) grid points, with the same transfer-overlap
-pattern bench.py uses — to reconcile the BASELINE.md round-1 claim (179k)
-with BENCH_r03's 67k and find the amortization point.
+(streams, frames-per-stream) grid points, to find where per-dispatch
+overhead amortizes and device memory fills.
 
-  python tools/sweep_at1_batch.py [--grid 8x512,32x512,...] [--pallas]
+  python tools/sweep_at1_batch.py [--grid 8x512,32x512,...]
 """
 import argparse
 import os
@@ -17,9 +16,6 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/atracdenc_tpu_jax_tpu"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 REF_AT1_UNITS_PER_S = 11670.0
 
@@ -28,10 +24,11 @@ DEFAULT_GRID = ("8x512", "16x512", "32x512", "64x512", "32x1024", "64x1024",
 
 
 def main():
+    from atracdenc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--grid", default=",".join(DEFAULT_GRID))
-    ap.add_argument("--pallas", action="store_true")
     args = ap.parse_args()
 
     import jax
@@ -39,7 +36,7 @@ def main():
     from atracdenc_tpu.models.atrac1.encoder import encode_frames
     from atracdenc_tpu.models.atrac1.device_pack import pack_device
 
-    print(f"backend: {jax.default_backend()}  pallas={args.pallas}")
+    print(f"backend: {jax.default_backend()}")
     rng = np.random.default_rng(42)
 
     def measure(streams, nframes):
@@ -54,7 +51,7 @@ def main():
         units = streams * 2 * nframes
 
         def one(p):
-            planes = encode_frames(p, use_pallas=args.pallas)
+            planes = encode_frames(p)
             merged = {k: jnp.swapaxes(v, 0, 1).reshape((-1,) + v.shape[2:])
                       for k, v in planes.items()}
             return pack_device(merged)

@@ -1,8 +1,7 @@
-"""Batch-shape sweep for the ATRAC3 end-to-end encode path (PERF.md plan #3).
+"""Batch-shape sweep for the ATRAC3 end-to-end encode path (ROADMAP A2).
 
 Measures steady-state stereo frames/s of the fused device pipeline
-(encode_frames -> pack_device_batch, transfer-overlapped exactly like
-bench.py) across (streams, frames-per-stream) grid points, to find where
+(encode_frames -> pack_device_batch, outputs copied to the host) across (streams, frames-per-stream) grid points, to find where
 per-dispatch overhead amortizes and HBM fills.
 
   python tools/sweep_at3_batch.py [--iters 4] [--grid 32x256,64x256,...]
@@ -17,19 +16,17 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/atracdenc_tpu_jax_tpu"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 
 DEFAULT_GRID = ("32x256", "64x256", "128x256", "32x512", "64x512",
                 "128x512", "32x1024", "64x1024", "256x256")
 
 
 def main():
+    from atracdenc_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--grid", default=",".join(DEFAULT_GRID))
-    ap.add_argument("--pallas", action="store_true")
     args = ap.parse_args()
 
     import jax
@@ -38,7 +35,7 @@ def main():
     from atracdenc_tpu.models.atrac3.device_pack import pack_device_batch
 
 
-    print(f"backend: {jax.default_backend()}  pallas={args.pallas}")
+    print(f"backend: {jax.default_backend()}")
     rng = np.random.default_rng(42)
 
     def measure(streams, nframes):
@@ -53,8 +50,7 @@ def main():
         batched = jax.jit(lambda xs: pack_device_batch(
             jax.vmap(lambda p: encode_frames(
                 p, frame_bytes=384, js=False,
-                no_gain_control=False, no_tonal=False,
-                use_pallas_rate=args.pallas))(xs), 384, False))
+                no_gain_control=False, no_tonal=False))(xs), 384, False))
         try:
             out = jax.device_get(batched(x))  # compile + warm
         except Exception as exc:
